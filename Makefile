@@ -20,7 +20,7 @@ check-fast:
 # jax.distributed runtime (4 virtual CPU devices each = the same 8-device
 # global mesh, spanning a real process boundary)
 check-parallel:
-	env PYPMC_TPU_TEST_NPROC=2 $(PYTHON) -m pytest tests/ -q
+	env PYPMC_TEST_NPROC=2 $(PYTHON) -m pytest tests/ -q
 
 # run every example on the simulated 8-device CPU mesh
 run-examples:

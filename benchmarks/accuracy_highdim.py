@@ -4,7 +4,7 @@ The reference's headline capability claim is <=1% integration error on
 multimodal problems in up to 30-40 dimensions, typically without manual
 tuning (``/root/reference/doc/abstract.txt:6-10``,
 ``/root/reference/README.md:15-18``).  This harness demonstrates that claim
-for the TPU build on the float32 fused kernel path, end to end:
+for the float32 device path, end to end:
 
     adaptive-MCMC chain pool  ->  Gelman-Rubin grouping / long-patches
     mixture  ->  variational Bayes  ->  importance sampling  ->  weighted-VB
@@ -13,7 +13,7 @@ for the TPU build on the float32 fused kernel path, end to end:
 
 against a D-dimensional bimodal Gaussian-mixture target whose evidence is
 analytically 1.  Everything device-side (the MCMC pool, the VB E-step, the
-IS propose/evaluate step, combine_weights) runs the same fused kernels the
+IS propose/evaluate step, combine_weights) runs the same code the
 production configuration uses.
 
 Usage:

@@ -2,13 +2,13 @@
 
 The reference's acceptance workload #3 is adaptive Metropolis
 (``examples/markov_chain.py``; hot loop ``sampler/markov_chain.py:100-165``,
-one Python object per chain).  The TPU-native form is ONE ``lax.scan``
-kernel ``vmap``-ed over the chain axis (``sample_adaptive_chains``): a chain
-step is inherently serial, so the device earns its keep on the CHAIN axis,
-not the step axis.  This measures chains*steps/s for growing pool sizes,
-plus the single-object host-driven ``AdaptiveMarkovChain`` baseline.
+one Python object per chain).  Here it is ONE ``lax.scan`` over the steps
+carrying the whole chain pool (``sample_adaptive_chains``): a chain step is
+inherently serial, so the device earns its keep on the CHAIN axis, not the
+step axis.  This measures chains*steps/s for growing pool sizes, plus the
+single-object host-driven ``AdaptiveMarkovChain`` baseline.
 
-Run on a TPU host:  python benchmarks/mcmc_chains.py
+    python benchmarks/mcmc_chains.py
 """
 
 import os
@@ -40,19 +40,11 @@ def make_target():
     return log_target, cov
 
 
-def bench_pool(C, fused=False):
+def bench_pool(C):
     import jax
     from pypmc_tpu.sampler import sample_adaptive_chains
 
     log_target, cov = make_target()
-    if fused:
-        # same quadratic target expressed as a 1-component Gaussian mixture
-        # (the normalization constant cancels in the Metropolis ratio) --
-        # routes through the one-kernel-per-cycle fused_mcmc_pool on TPU
-        from pypmc_tpu.density import core
-
-        log_target, _ = core.make_mixture(
-            np.zeros((1, D), np.float32), cov[None].astype(np.float32))
     rng = np.random.default_rng(0)
     starts = rng.normal(0, 1, size=(C, D)).astype(np.float32)
     sigma0 = (np.eye(D, dtype=np.float32) * 2.38**2 / D)
@@ -100,8 +92,4 @@ if __name__ == "__main__":
     for C in (1, 64, 1024, 4096, 16384):
         sps, rate = bench_pool(C)
         print("pool C=%-5d %12.0f chain-steps/s  (%.0fx single; accept %.2f)"
-              % (C, sps, sps / single, rate), flush=True)
-    for C in (1024, 4096, 16384):
-        sps, rate = bench_pool(C, fused=True)
-        print("FUSED pool C=%-5d %12.0f chain-steps/s  (%.0fx single; accept %.2f)"
               % (C, sps, sps / single, rate), flush=True)

@@ -1,4 +1,4 @@
-"""Full PMC training-step benchmark (BASELINE.md north-star: "IS samples/s/chip
+"""Full PMC training-step benchmark (BASELINE.md north-star: "IS samples/s
 + proposal-adaptation step time").
 
 One step = propose -> proposal log-q -> target log-q -> weights ->
@@ -31,12 +31,11 @@ def main():
     args = ap.parse_args()
 
     import jax
-    import jax.numpy as jnp
     from pypmc_tpu.density import core
-    from pypmc_tpu.mix_adapt.pmc import pmc_step_mixture_target, pmc_update
+    from pypmc_tpu.mix_adapt.pmc import pmc_step_mixture_target
 
     K, D, N = args.components, args.dim, args.particles
-    dtype = np.float32 if jax.default_backend() == "tpu" else np.float64
+    dtype = np.float64 if jax.default_backend() == "cpu" else np.float32
     rng = np.random.default_rng(0)
     means = rng.normal(0, 3, size=(K, D)).astype(dtype)
     a = rng.normal(0, 0.2, size=(K, D, D)).astype(dtype)
@@ -47,55 +46,35 @@ def main():
     t_covs = np.array([np.eye(D) * 0.8] * 2).astype(dtype)
     t_params, _ = core.make_mixture(t_means, t_covs, np.array([0.3, 0.7], dtype=dtype))
 
-    def make_step(student_t, mode):
-        if mode == "one_kernel":
-            # the ENTIRE step (propose, both evaluations, weights, rho,
-            # gamma, sufficient statistics) is one Pallas kernel; samples
-            # and weights touch HBM exactly once
-            @jax.jit
-            def step(params, key):
-                result, _, _, _, _ = pmc_step_mixture_target(
-                    params, t_params, key, N,
-                    dof_solver_steps=100 if student_t else 0,
-                )
-                return result.params
-
-        else:
-            # two fused passes: propose+evaluate kernel, then the
-            # sufficient-statistics kernel re-reads samples+weights
-            @jax.jit
-            def step(params, key):
-                samples_T, latent, log_q, log_p = core.propose_logq_T(
-                    params, key, N, t_params)
-                w = jnp.exp(log_p - log_q)
-                result = pmc_update(
-                    params, samples_T, w, transposed=True,
-                    dof_solver_steps=100 if student_t else 0,
-                )
-                return result.params
+    def make_step(student_t):
+        @jax.jit
+        def step(params, key):
+            result, _, _, _, _ = pmc_step_mixture_target(
+                params, t_params, key, N,
+                dof_solver_steps=100 if student_t else 0,
+            )
+            return result.params
 
         return step
 
     out = {}
     for name, student_t in [("gaussian", False), ("student_t", True)]:
-        for mode in ("two_pass", "one_kernel"):
-            params, _ = core.make_mixture(
-                means, covs, None, dofs if student_t else None
-            )
-            step = make_step(student_t, mode)
-            params = step(params, jax.random.PRNGKey(0))
-            jax.block_until_ready(params)
-            ts = []
-            for i in range(args.steps):
-                k = jax.random.fold_in(jax.random.PRNGKey(1), i)
-                t0 = time.perf_counter()
-                jax.block_until_ready(step(params, k))
-                ts.append((time.perf_counter() - t0) * 1e3)
-            med = float(np.median(ts))
-            out["%s_%s" % (name, mode)] = {
-                "step_ms": round(med, 1),
-                "samples_per_s": round(N / med * 1e3)}
-            print(name, mode, out["%s_%s" % (name, mode)], flush=True)
+        params, _ = core.make_mixture(
+            means, covs, None, dofs if student_t else None
+        )
+        step = make_step(student_t)
+        params = step(params, jax.random.PRNGKey(0))
+        jax.block_until_ready(params)
+        ts = []
+        for i in range(args.steps):
+            k = jax.random.fold_in(jax.random.PRNGKey(1), i)
+            t0 = time.perf_counter()
+            jax.block_until_ready(step(params, k))
+            ts.append((time.perf_counter() - t0) * 1e3)
+        med = float(np.median(ts))
+        out[name] = {"step_ms": round(med, 1),
+                     "samples_per_s": round(N / med * 1e3)}
+        print(name, out[name], flush=True)
 
     print(json.dumps({"pmc_step": out, "particles": N, "K": K, "D": D}))
 

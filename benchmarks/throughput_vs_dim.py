@@ -1,6 +1,6 @@
 """Propose+eval throughput across problem dimensions (perf surface).
 
-The headline bench pins D=10; this sweeps D for the same fused Student-t
+The headline bench pins D=10; this sweeps D for the same Student-t
 IS step (K=10 proposal, 2-component Gaussian target).  The particle count
 is N = min(2^26, budget/D) with budget = 10 * 2^26 elements: rows with
 D >= 10 share the same N*D traffic; rows below D=10 are capped at the

@@ -23,8 +23,6 @@ def main():
     ap.add_argument("--dim", type=int, default=10)
     ap.add_argument("--components", type=int, default=10)
     ap.add_argument("--reps", type=int, default=6)
-    ap.add_argument("--no-fused", action="store_true",
-                    help="force the plain XLA E-step")
     args = ap.parse_args()
 
     import jax
@@ -32,7 +30,7 @@ def main():
     from pypmc_tpu.mix_adapt import variational as vb
 
     K, D, N = args.components, args.dim, args.particles
-    dtype = np.float32 if jax.default_backend() == "tpu" else np.float64
+    dtype = np.float64 if jax.default_backend() == "cpu" else np.float32
     rng = np.random.default_rng(0)
 
     centers = rng.normal(0, 4, size=(K, D)).astype(dtype)
@@ -43,9 +41,6 @@ def main():
     vi = vb.GaussianInference(jnp.asarray(data), components=K,
                               weights=jnp.asarray(weights),
                               nu=np.full(K, D + 1.0))
-    if args.no_fused:
-        vi._fused_eligible = lambda: False
-        vi.E_step()
 
     # warmup: compile the combined M+E+bound dispatch (what run() uses)
     vi._update_with_bound()
@@ -60,7 +55,6 @@ def main():
     out = {
         "vb_update_ms": round(dt * 1e3, 1),
         "samples_per_s": int(N / dt),
-        "fused": not args.no_fused,
         "particles": N, "K": K, "D": D,
         "final_bound": b,
     }

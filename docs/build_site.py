@@ -38,7 +38,7 @@ PAGES = [
     ("docs/parity_map.md", "parity_map.html"),
     ("STATUS.md", "status.html"),
     ("docs/references.md", "references.html"),
-    ("BENCHMARKS.md", "benchmarks.html"),
+    ("PERF.md", "perf.html"),
     ("docs/api/README.md", "api/index.html"),
     ("docs/api/density.md", "api/density.html"),
     ("docs/api/sampler.md", "api/sampler.html"),

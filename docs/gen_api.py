@@ -43,7 +43,7 @@ MODULES = [
         "pypmc_tpu.ops.linalg",
         "pypmc_tpu.ops.lse",
         "pypmc_tpu.ops.random",
-        "pypmc_tpu.ops.pallas_kernels",
+        "pypmc_tpu.ops.mixture_kernel",
     ]),
     ("tools", [
         "pypmc_tpu.tools._history",

@@ -1,6 +1,6 @@
 """Adaptive Metropolis sampling (the reference's ``examples/markov_chain.py``
 workload): a local Student-t proposal adapts its covariance to a narrow
-correlated 2-D Gaussian target; on TPU the chain steps run as one compiled
+correlated 2-D Gaussian target; the chain steps run as one compiled
 ``lax.scan`` per run.
 """
 

@@ -1,10 +1,10 @@
-"""Device-mesh parallel PMC (the TPU-native replacement for the reference's
+"""Device-mesh parallel PMC (the replacement for the reference's
 ``examples/pmc_mpi.py``): the same bimodal-target PMC workload, but with the
 particle axis sharded over ALL available devices and the sufficient
 statistics all-reduced with psum -- no gather-to-rank-0, no proposal
 broadcast.
 
-Run on a multi-chip TPU slice directly, or simulate N devices on CPU:
+Run on a multi-GPU host directly, or simulate N devices on CPU:
 
     JAX_PLATFORMS=cpu XLA_FLAGS=--xla_force_host_platform_device_count=8 \
         python examples/pmc_sharded.py
@@ -28,8 +28,8 @@ target_mixture = pt.density.create_gaussian_mixture(
     [mean0, mean1], [covariance0, covariance1], component_weights
 )
 # passing the target's stacked MixtureParams (instead of a callable,
-# e.g. ``target_mixture.evaluate_fn()``) lets pmc_run_sharded fuse the
-# whole per-shard step into one kernel on TPU
+# e.g. ``target_mixture.evaluate_fn()``) lets pmc_run_sharded evaluate it
+# batched over each shard's particles
 log_target = target_mixture.stacked_params()
 
 # poor initial proposal: three wide components

@@ -34,8 +34,7 @@ log_target = target_mixture.evaluate_fn()
 # ---- 1. Markov chains from random starts in [-10, 10]^2 ---- #
 # All chains run IN PARALLEL on device: one vmapped scan kernel per
 # adaptation cycle (the reference loops 10 per-chain Python objects,
-# ``examples/uniting_markov_chains_and_variational_bayes.py:72-87``; see
-# BENCHMARKS.md "Adaptive MCMC" for the measured chain-pool throughput).
+# ``examples/uniting_markov_chains_and_variational_bayes.py:72-87``).
 rng = np.random.default_rng(2024)
 starts = rng.uniform(-10, 10, size=(10, dim))
 

@@ -1,9 +1,9 @@
-"""pypmc_tpu -- a TPU-native adaptive importance-sampling framework.
+"""pypmc_tpu -- an accelerator-native adaptive importance-sampling framework.
 
 A from-scratch JAX/XLA/Pallas re-design with the capabilities of pypmc:
 Gaussian/Student-t mixture proposals, (M-)PMC mixture updates, variational
 Bayes GMM fitting, adaptive-Metropolis MCMC, hierarchical mixture reduction,
-and particle-axis data parallelism over TPU device meshes (replacing pypmc's
+and particle-axis data parallelism over device meshes (replacing pypmc's
 MPI layer with ``shard_map`` + ``psum`` collectives).
 """
 

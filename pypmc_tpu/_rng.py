@@ -1,6 +1,6 @@
 """Random-number-generator adapters.
 
-The TPU-native code path uses explicit ``jax.random`` keys (functional,
+The device code path uses explicit ``jax.random`` keys (functional,
 splittable, reproducible across shardings).  For API parity with the
 reference -- whose samplers accept numpy ``mtrand``-style objects
 (``density/gauss.pyx:62-64``) -- host-side wrappers also accept numpy RNGs

@@ -3,7 +3,7 @@
 The reference has no serialization subsystem (state is picklable Python
 objects); here every algorithm's state is an explicit pytree / set of arrays,
 so checkpointing is first-class and dependency-light: plain ``.npz`` files
-that survive process restarts, host moves and CPU<->TPU transitions.
+that survive process restarts, host moves and CPU<->GPU transitions.
 
 * mixtures: :func:`save_mixture` / :func:`load_mixture` /
   :func:`load_mixture_params`

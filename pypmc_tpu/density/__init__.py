@@ -1,5 +1,5 @@
 """Probability densities: Gaussian/Student-t components, mixtures, and the
-stacked-parameter TPU-native functional core."""
+stacked-parameter functional core."""
 
 from . import base, core, gauss, mixture, student_t
 from ._partition import partition, patch_data

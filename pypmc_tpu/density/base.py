@@ -5,7 +5,7 @@ same class names and method contracts, so code written against pypmc ports
 directly.  All densities work on the log scale; ``evaluate`` returns
 ``log q(x)``.
 
-The TPU-native compute path lives in :mod:`pypmc_tpu.density.core`; these
+The device compute path lives in :mod:`pypmc_tpu.density.core`; these
 classes are thin host-side wrappers holding numpy parameters.
 """
 

@@ -1,6 +1,6 @@
 """Functional density core: stacked-parameter mixtures as pytrees.
 
-This is the TPU-native redesign of the reference's density layer
+This is the array-programming redesign of the reference's density layer
 (``pypmc/density/gauss.pyx``, ``student_t.pyx``, ``mixture.pyx``): instead of
 a Python list of component objects each with its own scalar-loop ``evaluate``,
 a mixture is ONE pytree of stacked arrays
@@ -8,14 +8,16 @@ a mixture is ONE pytree of stacked arrays
     means (K, D), chol/inv_chol/inv_sigma (K, D, D), log_det (K,),
     weights (K,), [dof (K,) for Student-t]
 
-and every operation is a single batched XLA computation:
+and every operation is a single batched computation:
 
 * :func:`component_logpdfs` produces the full ``(N, K)`` log-density matrix
   (the reference computes it with per-component Cython N-loops,
-  ``mixture.pyx:112-156``) through one big ``(N,D) x (K,D,D)`` contraction
-  that XLA tiles onto the MXU.
-* :func:`mixture_logpdf` fuses the weighted log-sum-exp on top
-  (``mixture.pyx:101-110`` + ``_regularize.pyx:57``).
+  ``mixture.pyx:112-156``) through one big ``(N,D) x (K,D,D)`` contraction.
+* :func:`mixture_logpdf_T` fuses the weighted log-sum-exp on top
+  (``mixture.pyx:101-110`` + ``_regularize.pyx:57``); on the GPU, large
+  float32 batches go through one fused kernel
+  (:mod:`pypmc_tpu.ops.mixture_kernel`) that never writes the ``(N, K, D)``
+  projection.
 * :func:`propose` replaces multinomial block-allocation + shuffle
   (``mixture.pyx:159-212``) with an order-free per-particle categorical draw
   + gather -- same distribution, shard-friendly along the particle axis.
@@ -26,7 +28,6 @@ parameters kept in place -- mirroring the reference's live-component lists
 """
 
 import dataclasses
-import os
 from functools import partial
 from typing import Optional
 
@@ -34,59 +35,32 @@ import jax
 import jax.numpy as jnp
 
 from ..ops.linalg import chol_inv_det, symmetrize
+from ..ops import mixture_kernel
 from ..ops.lse import logsumexp
 
 
-def use_pallas(x, K=None, dim=None, quantum=None) -> bool:
-    """Whether the fused Pallas TPU kernels should be used for arrays like
-    ``x``: TPU backend, float32, and not disabled via the
-    ``PYPMC_TPU_DISABLE_PALLAS`` environment variable.  When the mixture
-    size ``(K, dim)`` is given, additionally require that it fits the
-    kernels' VMEM budget at the minimum particle tile
-    (:func:`pypmc_tpu.ops.pallas_kernels.fits_vmem`; ``quantum`` is the
-    kernel family's lane-tile quantum -- ``QUANTUM_EVAL`` (128) for
-    evaluation/statistics kernels, ``QUANTUM_RNG`` (1024, the default) for
-    the in-kernel-RNG propose kernels) -- very large ``K*D`` mixtures take
-    the unfused XLA path instead of failing at compile time.  The XLA path
-    remains the reference implementation (used on CPU and for float64)."""
-    if os.environ.get("PYPMC_TPU_DISABLE_PALLAS"):
-        return False
-    if x.dtype != jnp.float32:
-        return False
-    if jax.default_backend() != "tpu" and not os.environ.get(
-            "PYPMC_TPU_PALLAS_INTERPRET"):
-        # PYPMC_TPU_PALLAS_INTERPRET runs the SAME fused kernels through the
-        # Pallas interpreter on any backend -- the multichip dryrun uses it
-        # so the production fused path executes under the virtual CPU mesh
-        return False
-    if K is not None:
-        from ..ops.pallas_kernels import QUANTUM_RNG, fits_vmem
+def _kernel_operands(params: "MixtureParams"):
+    """Operands of the fused GPU kernel (:mod:`pypmc_tpu.ops.mixture_kernel`):
+    ``center (D,)``, ``u (K, D, D)``, ``b (K, D)``, ``coef (K, 3)``.
 
-        if not fits_vmem(K, dim, QUANTUM_RNG if quantum is None else quantum):
-            return False
-    return True
+    ``center`` is the mixture's weighted mean; the kernel subtracts it from
+    the particles before anything else, so float32 accuracy depends on the
+    spread of the particles around the mixture, not on their distance from
+    the origin."""
+    w = params.weights
+    center = jnp.einsum("k,kd->d", w, params.means, precision="highest")
+    u = params.inv_chol
+    b = jnp.einsum("kij,kj->ki", u, params.means - center[None, :],
+                   precision="highest")
+    lw = jnp.where(w > 0, jnp.log(jnp.where(w > 0, w, 1.0))
+                   + log_normalization(params), -jnp.inf)
+    if params.is_student_t:
+        coef = jnp.stack([lw, 0.5 * (params.dof + params.dim), 1.0 / params.dof],
+                         axis=-1)
+    else:
+        coef = jnp.stack([lw, jnp.zeros_like(lw), jnp.zeros_like(lw)], axis=-1)
+    return center, u, b, coef
 
-
-def _pallas_operands(params: "MixtureParams", matrix_field: str):
-    """Pack stacked parameters into the layout the Pallas kernels expect:
-    ``a2 (K*D, D)``, ``b2 (K*D, 1)``, ``log_norm (K, 1)``, ``weights (K, 1)``,
-    ``dof (K, 1) | None``, ``center (D,)``.
-
-    ``center`` is the mixture's weighted mean -- the kernels subtract it
-    from the particles before their split-precision matmuls so evaluation
-    accuracy is translation-invariant (the ~2^-16 relative matmul error
-    scales with the whitened spread around the mixture, not with the raw
-    coordinate magnitude)."""
-    K, D = params.means.shape
-    m = getattr(params, matrix_field)  # (K, D, D); inv_chol or chol
-    a2 = m.reshape(K * D, D)
-    b2 = jnp.einsum("kd,kid->ki", params.means, m, precision="highest").reshape(K * D, 1)
-    log_norm = log_normalization(params).reshape(K, 1)
-    weights = params.weights.reshape(K, 1)
-    dof = None if params.dof is None else params.dof.reshape(K, 1)
-    center = jnp.einsum("k,kd->d", params.weights, params.means,
-                        precision="highest")
-    return a2, b2, log_norm, weights, dof, center
 
 __all__ = [
     "MixtureParams",
@@ -104,7 +78,6 @@ __all__ = [
     "propose_T",
     "propose_logq_T",
     "update_masked",
-    "use_pallas",
 ]
 
 
@@ -196,12 +169,12 @@ def mahalanobis(x, means, inv_chol):
     """Squared Mahalanobis distances ``(N, K)`` of points to all components.
 
     Computed as ``|| U_k x_n - U_k mu_k ||^2`` with ``U = L^{-1}`` so the
-    dominant cost is ONE ``(N,D) x (D, K*D)`` matmul on the MXU rather than
-    K separate quadratic forms (the reference's ``bilinear_sym`` N-loops).
+    dominant cost is ONE ``(N,D) x (D, K*D)`` matmul rather than K separate
+    quadratic forms (the reference's ``bilinear_sym`` N-loops).
     """
     # proj[n,k,i] = sum_d U[k,i,d] * x[n,d]
-    # precision="highest": the TPU default uses bfloat16 matmul passes,
-    # which costs ~3 decimal digits in the distances
+    # precision="highest": a reduced-precision (TF32 or bfloat16) product
+    # costs ~3 decimal digits in the distances
     proj = jnp.einsum("nd,kid->nki", x, inv_chol, precision="highest")
     b = jnp.einsum("kd,kid->ki", means, inv_chol, precision="highest")
     diff = proj - b[None, :, :]
@@ -210,13 +183,8 @@ def mahalanobis(x, means, inv_chol):
 
 def mahalanobis_all_T(params: MixtureParams, xT) -> jax.Array:
     """``(K, N)`` squared Mahalanobis distances for transposed particles
-    ``xT (D, N)``; fused Pallas pass on TPU/float32, XLA einsum otherwise."""
+    ``xT (D, N)``."""
     xT = jnp.asarray(xT)
-    if use_pallas(xT, params.K, params.dim, 128) and xT.shape[1] >= 1024:
-        from ..ops.pallas_kernels import fused_maha
-
-        a2, b2, _, _, _, center = _pallas_operands(params, "inv_chol")
-        return fused_maha(xT, a2, b2, center, dim=params.dim)
     return mahalanobis(xT.T, params.means, params.inv_chol).T
 
 
@@ -243,20 +211,18 @@ def component_logpdfs(params: MixtureParams, x) -> jax.Array:
 
 def mixture_logpdf_T(params: MixtureParams, xT) -> jax.Array:
     """Mixture log-density ``log q(x_n)``, shape ``(N,)``, for TRANSPOSED
-    particles ``xT (D, N)`` -- the native TPU layout (the particle axis on
-    the 128-lane dimension; a row-major (N, D) array with small D wastes up
-    to 98% of VPU lanes and >10x HBM to tile padding).
+    particles ``xT (D, N)`` (the particle axis last, the layout the samplers
+    keep on the device).
 
-    Fuses the per-component log-densities with the weighted log-sum-exp
-    (``mixture.pyx:101-110``) in a single Pallas kernel on TPU/float32.
+    The per-component log-densities and the weighted log-sum-exp
+    (``mixture.pyx:101-110``) run as one fused kernel where
+    :func:`pypmc_tpu.ops.mixture_kernel.use_kernel` says so (GPU, float32,
+    large batches), as XLA operations otherwise.
     """
     xT = jnp.asarray(xT)
-    if use_pallas(xT, params.K, params.dim, 128) and xT.shape[1] >= 1024:
-        from ..ops.pallas_kernels import fused_logq
-
-        a2, b2, log_norm, weights, dof, center = _pallas_operands(params, "inv_chol")
-        return fused_logq(xT, a2, b2, log_norm, weights, dof, center,
-                          dim=params.dim)
+    if mixture_kernel.use_kernel(xT):
+        return mixture_kernel.mixture_logq(
+            xT, *_kernel_operands(params), student_t=params.is_student_t)
     return logsumexp(component_logpdfs(params, xT.T), params.weights, axis=-1)
 
 
@@ -300,23 +266,7 @@ def propose_T(params: MixtureParams, key, n: int):
     latent = jnp.sum(u[None, :] >= cumw[:-1, None], axis=0).astype(jnp.int32)
     zT = jax.random.normal(k_norm, (params.dim, n), dtype=dtype)
 
-    from ..ops.pallas_kernels import QUANTUM_EVAL
-
-    # the in-kernel-RNG kernel needs 1024-lane tiles; the plain transform
-    # kernel only needs the 128-lane vreg quantum, so large K*D mixtures
-    # (e.g. K=64, D=40) still get the VMEM-resident parameter select
-    fused_eval = (
-        use_pallas(zT, params.K, params.dim, QUANTUM_EVAL) and n >= 1024
-    )
-    fused_rng = (
-        use_pallas(zT, params.K, params.dim) and n >= 1024
-        and not os.environ.get("PYPMC_TPU_DISABLE_FUSED_RNG")
-    )
-
-    if params.is_student_t and not fused_rng:
-        # NOTE: measured end-to-end on TPU v5e, jax.random.chisquare beats
-        # the compacted-rejection alternative in ops.random (whose
-        # gather/scatter tail is expensive on TPU); both are exact
+    if params.is_student_t:
         dof_n = params.dof[latent]
         chi2 = jax.random.chisquare(k_chi, dof_n, shape=(n,), dtype=dtype)
         # float32 chi2 underflows to exactly 0 with probability
@@ -327,55 +277,18 @@ def propose_T(params: MixtureParams, key, n: int):
     else:
         scale = jnp.ones((n,), dtype=dtype)
 
-    if fused_eval:
-        # fused transform: the per-particle (D, D) parameter select happens
-        # in VMEM instead of an (N, D, D) gather in HBM
-        ct2 = params.chol.reshape(params.K * params.dim, params.dim)
-        if fused_rng:
-            # ALL remaining randomness is generated INSIDE the kernel from
-            # the TPU hardware PRNG: Box-Muller normals and, for Student-t,
-            # the per-particle chi-square scale (the chi-square alone is
-            # ~60% of the step cost through the host threefry path).
-            # Deterministic given the key (the kernel seed derives from
-            # it), but the stream differs from the XLA/CPU path -- sampling
-            # tests are statistical anyway (JAX PRNG != numpy MT19937
-            # already).
-            from ..ops.pallas_kernels import fused_transform_rng
+    # gather (D, K) column panels of the Cholesky factors by latent and
+    # accumulate over j, instead of gathering an (N, D, D) table: only ONE
+    # gathered (D, N) panel is live at a time under lax.scan (an unrolled
+    # loop kept all D panels live: 165 GB at K=64, D=40, N=2^23).
+    chol_cols = params.chol.transpose(2, 1, 0)  # (j, D, K)
 
-            # TWO 32-bit seed words from the key: cross-step stream
-            # collisions become ~2^-64 instead of the 32-bit birthday bound
-            seed = jax.lax.bitcast_convert_type(
-                jax.random.bits(k_norm, (2,), "uint32"), jnp.int32
-            )
-            dof2 = None if params.dof is None else params.dof.reshape(1, params.K)
-            samples_T = fused_transform_rng(
-                seed, latent.astype(jnp.int32), scale, ct2, params.means.T,
-                dof2, dim=params.dim,
-            )
-        else:
-            from ..ops.pallas_kernels import fused_transform
+    def _acc_col(acc, col):
+        Lj, zj = col
+        return acc + Lj[:, latent] * zj[None, :], None
 
-            samples_T = fused_transform(
-                zT, latent.astype(jnp.int32), scale, ct2, params.means.T,
-                dim=params.dim,
-            )
-    else:
-        # XLA path: gather (D, K) column panels of the Cholesky factors and
-        # accumulate over j, instead of gathering an (N, D, D) table -- on
-        # TPU the gathered f32[N, D, D] pads its last axis to 128 lanes
-        # (64x HBM expansion at D=2: OOM at the 10^7-particle scale), while
-        # a gathered (D, N) panel only pads sublanes (<= 4x, D-independent).
-        # The accumulation runs under lax.scan so only ONE gathered panel is
-        # live at a time (an unrolled loop kept all D panels live: 165 GB of
-        # compile-time HBM at K=64, D=40, N=2^23).
-        chol_cols = params.chol.transpose(2, 1, 0)  # (j, D, K)
-
-        def _acc_col(acc, col):
-            Lj, zj = col
-            return acc + Lj[:, latent] * zj[None, :], None
-
-        acc, _ = jax.lax.scan(_acc_col, jnp.zeros_like(zT), (chol_cols, zT))
-        samples_T = params.means.T[:, latent] + acc * scale[None, :]
+    acc, _ = jax.lax.scan(_acc_col, jnp.zeros_like(zT), (chol_cols, zT))
+    samples_T = params.means.T[:, latent] + acc * scale[None, :]
     return samples_T, latent
 
 
@@ -389,48 +302,19 @@ def propose(params: MixtureParams, key, n: int):
 
 @partial(jax.jit, static_argnames=("n",))
 def propose_logq_T(params: MixtureParams, key, n: int, target_params=None):
-    """Fused propose-and-evaluate: draw ``n`` mixture samples and evaluate
-    the proposal log-density (and optionally a second, target mixture's
-    log-density) on them in ONE Pallas kernel -- the samples are written to
-    HBM once and never re-read by the evaluation passes.
+    """Propose and evaluate: draw ``n`` mixture samples and evaluate the
+    proposal log-density (and optionally a second, target mixture's
+    log-density) on them, in one jitted computation.
 
     Returns ``(samples_T (D, n), latent (n,), log_q (n,))``, plus
-    ``log_p (n,)`` when ``target_params`` is given.  Off the TPU fast path
-    this composes :func:`propose_T` and :func:`mixture_logpdf_T` (same
-    distribution and values, separate passes).
+    ``log_p (n,)`` when ``target_params`` is given.  Composes
+    :func:`propose_T` and :func:`mixture_logpdf_T`.
     """
-    k_total = params.K + (0 if target_params is None else target_params.K)
-    fused = (
-        use_pallas(params.means, k_total, params.dim) and n >= 1024
-        and not os.environ.get("PYPMC_TPU_DISABLE_FUSED_RNG")
-    )
-    if not fused:
-        samples_T, latent = propose_T(params, key, n)
-        log_q = mixture_logpdf_T(params, samples_T)
-        if target_params is None:
-            return samples_T, latent, log_q
-        return samples_T, latent, log_q, mixture_logpdf_T(target_params, samples_T)
-
-    from ..ops.pallas_kernels import fused_propose_logq
-
-    # ALL randomness (component choice included) is drawn in-kernel from
-    # the hardware PRNG; the jax key only provides the seed (TWO 32-bit
-    # words, so cross-step stream collisions are ~2^-64)
-    seed = jax.lax.bitcast_convert_type(
-        jax.random.bits(key, (2,), "uint32"), jnp.int32
-    )
-    cumw = _cumulative_weights(params.weights).reshape(params.K, 1)
-    ct2 = params.chol.reshape(params.K * params.dim, params.dim)
-    a2, b2, log_norm, weights, dof_col, center = _pallas_operands(params, "inv_chol")
-    dof_row = None if params.dof is None else params.dof.reshape(1, params.K)
-    target = None
-    if target_params is not None:
-        target = _pallas_operands(target_params, "inv_chol")
-    return fused_propose_logq(
-        seed, cumw, ct2, params.means.T, dof_row,
-        a2, b2, log_norm, weights, dof_col, center, target,
-        n=n, dim=params.dim,
-    )
+    samples_T, latent = propose_T(params, key, n)
+    log_q = mixture_logpdf_T(params, samples_T)
+    if target_params is None:
+        return samples_T, latent, log_q
+    return samples_T, latent, log_q, mixture_logpdf_T(target_params, samples_T)
 
 
 def update_masked(params: MixtureParams, new_means, new_covs, new_weights,

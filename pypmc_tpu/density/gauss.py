@@ -3,7 +3,7 @@
 API-parity re-design of the reference's ``pypmc/density/gauss.pyx``.  The
 classes here are light host wrappers around numpy parameters with the exact
 ``update``/``LinAlgError``-rollback semantics of the reference
-(``gauss.pyx:23-48``); the batched TPU compute path for mixtures of these
+(``gauss.pyx:23-48``); the batched device compute path for mixtures of these
 components lives in :mod:`pypmc_tpu.density.core`.
 """
 

@@ -3,8 +3,8 @@
 API-parity re-design of the reference's ``pypmc/density/mixture.pyx``.  A
 :class:`MixtureDensity` keeps a list of host-side component objects (for the
 reference's object API) but all heavy evaluation/proposal work is dispatched
-to the stacked-parameter batched kernels in :mod:`pypmc_tpu.density.core`,
-which run as single fused XLA computations on TPU.
+to the stacked-parameter batched computations in
+:mod:`pypmc_tpu.density.core`.
 """
 
 import numpy as _np
@@ -59,7 +59,7 @@ class MixtureDensity(ProbabilityDensity):
         self.normalize()
 
     # ------------------------------------------------------------------ #
-    # stacked-parameter bridge to the TPU-native functional core          #
+    # stacked-parameter bridge to the functional core                     #
     # ------------------------------------------------------------------ #
 
     @property
@@ -121,10 +121,10 @@ class MixtureDensity(ProbabilityDensity):
 
         With ``batched=False`` (default) the callable maps ``x (D,) ->
         log q(x)`` (the reference's ``evaluate`` contract).  With
-        ``batched=True`` it maps the full block ``x (N, D) -> (N,)`` through
-        the fused TPU kernel and is marked as a batched target -- the fast
+        ``batched=True`` it maps the full block ``x (N, D) -> (N,)`` in one
+        mixture evaluation and is marked as a batched target -- the fast
         path for the samplers (per-sample quadratic forms under ``vmap``
-        lower to MXU-latency-bound tiny matmuls on TPU).
+        lower to many tiny matmuls).
         """
         import jax.numpy as jnp
 
@@ -223,7 +223,7 @@ class MixtureDensity(ProbabilityDensity):
         Same contract as the reference (``mixture.pyx:112-156``): fills the
         ``(N, K)`` array ``individual`` with per-component log-densities if
         given; returns the ``(N,)`` mixture log-density (or None when a
-        component subset is selected).  On TPU this is ONE fused batched
+        component subset is selected).  This is ONE batched device
         computation instead of per-component Cython loops.
         """
         x = _np.asarray(x)
@@ -288,7 +288,7 @@ class MixtureDensity(ProbabilityDensity):
 
         ``rng`` may be a numpy mtrand-style generator (reference-compatible
         multinomial block allocation, ``mixture.pyx:159-212``) or a jax PRNG
-        key / int seed (TPU-native per-particle categorical draw -- already
+        key / int seed (device per-particle categorical draw -- already
         unordered, so ``shuffle`` is a no-op there).
 
         If ``trace``, additionally return the generating component index per

@@ -1,7 +1,7 @@
 """Student's t probability densities (host-side component API).
 
 API-parity re-design of the reference's ``pypmc/density/student_t.pyx``;
-batched TPU compute for mixtures of these components lives in
+batched device compute for mixtures of these components lives in
 :mod:`pypmc_tpu.density.core`.
 """
 

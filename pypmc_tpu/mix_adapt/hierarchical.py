@@ -38,9 +38,9 @@ def kl_divergence_matrix(mu1, cov1, mu2, cov2):
     _, log_det1 = jnp.linalg.slogdet(cov1)
     d = res2.log_det[None, :] - log_det1[:, None]
     # trace(inv2_j . cov1_i)
-    d = d + jnp.einsum("jab,iba->ij", res2.inv, cov1)
+    d = d + jnp.einsum("jab,iba->ij", res2.inv, cov1, precision="highest")
     diff = mu1[:, None, :] - mu2[None, :, :]  # (nin, nout, D)
-    d = d + jnp.einsum("ija,jab,ijb->ij", diff, res2.inv, diff)
+    d = d + jnp.einsum("ija,jab,ijb->ij", diff, res2.inv, diff, precision="highest")
     d = d - mu1.shape[1]
     return jnp.where(res2.valid[None, :], 0.5 * d, jnp.inf)
 

@@ -1,4 +1,4 @@
-"""Population Monte Carlo (PMC) mixture updates on TPU.
+"""Population Monte Carlo (PMC) mixture updates on the accelerator.
 
 Re-design of the reference's ``pypmc/mix_adapt/pmc.pyx``: the
 Rao-Blackwellized responsibilities, the [Cap+08] eq. (14) sufficient
@@ -26,6 +26,7 @@ from ..density import core as _core
 from ..density.gauss import Gauss
 from ..density.mixture import MixtureDensity
 from ..density.student_t import StudentT
+from ..ops import mixture_kernel
 from ..ops.lse import logsumexp, regularize, tiny
 
 import logging
@@ -46,17 +47,16 @@ def calculate_rho_rb_T(params: _core.MixtureParams, samples_T) -> jax.Array:
     TRANSPOSED particles ``samples_T (D, N)``.
 
     ``rho[k,n] = w_k q_k(x_n) / (q(x_n) + tiny)`` -- the reference's
-    ``calculate_rho_rb`` (``pmc.pyx:23-43``) as one fused batched kernel.
-    Dead components (weight 0) get exactly zero.  On TPU/float32 this runs
-    as a single fused Pallas pass over the particles.
+    ``calculate_rho_rb`` (``pmc.pyx:23-43``) as one batched computation.
+    Dead components (weight 0) get exactly zero.  Where
+    :func:`pypmc_tpu.ops.mixture_kernel.use_kernel` says so (GPU, float32,
+    large batches) this is one fused kernel pass over the particles.
     """
     samples_T = jnp.asarray(samples_T)
-    if _core.use_pallas(samples_T, params.K, params.dim, 128) and samples_T.shape[1] >= 1024:
-        from ..ops.pallas_kernels import fused_rho
-
-        a2, b2, log_norm, weights, dof, center = _core._pallas_operands(params, "inv_chol")
-        rho, _ = fused_rho(samples_T, a2, b2, log_norm, weights, dof, center,
-                           dim=params.dim)
+    if mixture_kernel.use_kernel(samples_T):
+        rho, _ = mixture_kernel.mixture_rho(
+            samples_T, *_core._kernel_operands(params),
+            student_t=params.is_student_t)
         return rho
     logpdfs = _core.component_logpdfs(params, samples_T.T)  # (N, K)
     log_denom = logsumexp(logpdfs, params.weights, axis=-1)
@@ -90,7 +90,7 @@ def _cov_sums_T(samples_T, c_T, mu):
     particles.
 
     Mapped sequentially over K so only a ``(D, N)`` intermediate exists per
-    component; each step is an MXU matmul ``(D, N) @ (N, D)`` with the huge
+    component; each step is a matmul ``(D, N) @ (N, D)`` with the huge
     particle axis as the contraction dimension.
     """
     def per_k(args):
@@ -101,50 +101,18 @@ def _cov_sums_T(samples_T, c_T, mu):
     return jax.lax.map(per_k, (c_T, mu))
 
 
-_FUSED_MODES = ("auto", "dense", "blocked", "off")
-
-
-def _check_fused_arg(fused):
-    """Reject typo'd ``fused=`` values at trace time instead of silently
-    treating them as ``"auto"``."""
-    if fused not in _FUSED_MODES:
-        raise ValueError(
-            "fused must be one of %s, got %r" % (_FUSED_MODES, fused)
-        )
-
-
-def _check_fused_feasible(fused, fused_mode, requirements):
-    """An explicitly forced ``fused="dense"``/``"blocked"`` that fails the
-    feasibility gate must not silently reroute onto the XLA path (a forced
-    kernel-validation run would quietly compare XLA against XLA)."""
-    if fused in ("dense", "blocked") and fused_mode != fused:
-        raise ValueError(
-            "fused=%r was forced but is infeasible for these operands; "
-            "the %r kernel requires %s. Use fused='auto' to allow fallback."
-            % (fused, fused, requirements)
-        )
-
-
 class PMCResult(NamedTuple):
-    """Result of one :func:`pmc_update`.
-
-    ``rho`` holds the ``(K, N)`` responsibilities (transposed layout), or
-    **None** when the update ran on the fused single-pass TPU path (the
-    production path for ``rb=True`` with N >= 1024 on TPU/float32): there the
-    responsibilities are reduced tile-by-tile in VMEM and never materialized.
-    Callers that need them can recompute with
-    :func:`calculate_rho_rb_T(params, samples_T)` on the PRE-update
-    parameters (identical values, one extra pass)."""
+    """Result of one :func:`pmc_update`; ``rho`` holds the ``(K, N)``
+    responsibilities (transposed layout) of the pre-update parameters."""
 
     params: _core.MixtureParams
-    rho: Optional[jax.Array]  # (K, N) responsibilities (transposed layout),
-    #                           or None on the fused single-pass TPU path
+    rho: jax.Array            # (K, N) responsibilities (transposed layout)
     updated_ok: jax.Array     # (K,) bool; updated components that stayed valid
     live: jax.Array           # (K,) bool; live components before the update
 
 
 @partial(jax.jit, static_argnames=("rb", "mincount", "dof_solver_steps",
-                                   "axis_name", "transposed", "fused"))
+                                   "axis_name", "transposed"))
 def pmc_update(
     params: _core.MixtureParams,
     samples,
@@ -157,7 +125,6 @@ def pmc_update(
     maxdof: float = 1e3,
     axis_name: Optional[str] = None,
     transposed: bool = False,
-    fused: str = "auto",
 ) -> PMCResult:
     """One (M-)PMC update of a Gaussian or Student-t mixture ([Cap+08] eq. 14,
     [HOD12] for the dof) as a single jitted computation.
@@ -165,8 +132,8 @@ def pmc_update(
     :param params: stacked mixture parameters (Gaussian iff ``params.dof`` is
         None).
     :param samples: ``(N, D)`` samples drawn from the current mixture, or
-        ``(D, N)`` with ``transposed=True`` (the native TPU layout; hot
-        pipelines should pass transposed to avoid layout conversions).
+        ``(D, N)`` with ``transposed=True`` (the layout the samplers keep on
+        the device; hot pipelines should pass it to avoid transposes).
     :param weights: ``(N,)`` unnormalized importance weights, or None for
         equal weights.
     :param latent: ``(N,)`` int indices of the generating components, or
@@ -186,12 +153,6 @@ def pmc_update(
         ``tools/parallel_sampler.py:58-71``).  Every shard computes the
         identical updated mixture.
     :param transposed: whether ``samples`` is ``(D, N)``.
-    :param fused: kernel dispatch: ``"auto"`` (default -- dense single-pass
-        kernel where ``K*D <= 128``, K-blocked where the XLA path's ``(K, N)``
-        responsibility matrix would crowd HBM, XLA einsums otherwise),
-        ``"dense"`` / ``"blocked"`` to force a specific single-pass kernel
-        (subject to hard feasibility: TPU/float32, ``N >= 1024``, VMEM fit),
-        or ``"off"`` to force the unfused XLA path.
     """
     samples_T = jnp.asarray(samples)
     if not transposed:
@@ -217,88 +178,42 @@ def pmc_update(
         count = psum(jnp.bincount(latent, length=K))
         live = live & (count >= mincount)
 
-    _check_fused_arg(fused)
     dof_stats = params.is_student_t and bool(dof_solver_steps)
-    fused_mode = None
-    if fused != "off" and rb and _core.use_pallas(samples_T) and N >= 1024:
-        from ..ops.pallas_kernels import (QUANTUM_EVAL, fits_vmem_blocked,
-                                          prefer_blocked)
-
-        dense_ok = K * dim <= 128
-        blocked_ok = fits_vmem_blocked(K, dim, QUANTUM_EVAL)
-        if fused == "dense":
-            fused_mode = "dense" if dense_ok else None
-        elif fused == "blocked":
-            fused_mode = "blocked" if blocked_ok else None
-        elif dense_ok:
-            fused_mode = "dense"
-        elif blocked_ok and prefer_blocked(K, N):
-            # K-blocked kernel: lifts the dense kernel's VMEM cap so the
-            # reference's K=400-scale mixture-reduction workloads stay on
-            # the single-pass path; elected only where the XLA path's
-            # (K, N) responsibility matrix would crowd HBM (at large D and
-            # moderate K*N the XLA einsums are faster -- see prefer_blocked)
-            fused_mode = "blocked"
-    _check_fused_feasible(fused, fused_mode,
-                          "rb=True, TPU/float32, N >= 1024, and VMEM fit "
-                          "(K*D <= 128 for 'dense')")
-
-    if fused_mode:
-        # ONE fused pass: rho, gamma, and every sufficient statistic are
-        # computed per tile and accumulated in VMEM -- no (K, N) or second
-        # (D, N) array ever reaches HBM.  Second moments arrive in WHITENED
-        # coordinates (G_k = U_k S_k U_k^T) and are mapped back with the
-        # known Cholesky factors.
-        from ..ops.pallas_kernels import (fused_pmc_stats,
-                                          fused_pmc_stats_blocked)
-
-        kernel = (fused_pmc_stats if fused_mode == "dense"
-                  else fused_pmc_stats_blocked)
-        a2, b2, log_norm, wk, dof_col, _ = _core._pallas_operands(params, "inv_chol")
-        psi_c = None
-        if dof_stats:
-            psi_c = jax.scipy.special.digamma(
-                0.5 * (dim + params.dof)).reshape(K, 1).astype(dtype)
-        stats = kernel(samples_T, w, a2, b2, log_norm, wk, dof_col,
-                       psi_c, dim=dim, dof_stats=dof_stats)
-        alpha, mu, cov, const = _moments_from_whitened_stats(
-            params, stats, weight_normalization, psum, dof_stats)
-        rho = None
+    if rb:
+        rho = calculate_rho_rb_T(params, samples_T)   # (K, N)
     else:
-        if rb:
-            rho = calculate_rho_rb_T(params, samples_T)   # (K, N)
-        else:
-            rho = _rho_non_rb_T(params, latent, K)
+        rho = _rho_non_rb_T(params, latent, K)
 
-        # ---- [Cap+08] eq. (14) sufficient statistics ------------------ #
-        wrho = w[None, :] * rho                          # (K, N)
-        alpha_unnorm = psum(jnp.sum(wrho, axis=1))       # (K,)
-        inv_unnorm_alpha = 1.0 / regularize(alpha_unnorm)
-        alpha = alpha_unnorm / weight_normalization
+    # ---- [Cap+08] eq. (14) sufficient statistics ------------------ #
+    wrho = w[None, :] * rho                          # (K, N)
+    alpha_unnorm = psum(jnp.sum(wrho, axis=1))       # (K,)
+    inv_unnorm_alpha = 1.0 / regularize(alpha_unnorm)
+    alpha = alpha_unnorm / weight_normalization
 
-        if params.is_student_t:
-            # gamma pass with the OLD parameters (``pmc.pyx:601-610``)
-            maha_old = _core.mahalanobis_all_T(params, samples_T)   # (K, N)
-            nu = params.dof[:, None]
-            gamma = (nu + dim) / (nu + maha_old)         # (K, N)
-            c_mu = wrho * gamma
-            mu_norm = 1.0 / regularize(psum(jnp.sum(c_mu, axis=1)))
-            mu = psum(jnp.einsum("kn,in->ki", c_mu, samples_T, precision="highest")) * mu_norm[:, None]
-            cov = psum(_cov_sums_T(samples_T, c_mu, mu)) * inv_unnorm_alpha[:, None, None]
-        else:
-            mu = psum(jnp.einsum("kn,in->ki", wrho, samples_T, precision="highest")) * inv_unnorm_alpha[:, None]
-            cov = psum(_cov_sums_T(samples_T, wrho, mu)) * inv_unnorm_alpha[:, None, None]
+    if params.is_student_t:
+        # gamma pass with the OLD parameters (``pmc.pyx:601-610``)
+        maha_old = _core.mahalanobis_all_T(params, samples_T)   # (K, N)
+        nu = params.dof[:, None]
+        gamma = (nu + dim) / (nu + maha_old)         # (K, N)
+        c_mu = wrho * gamma
+        mu_norm = 1.0 / regularize(psum(jnp.sum(c_mu, axis=1)))
+        mu = psum(jnp.einsum("kn,in->ki", c_mu, samples_T, precision="highest")) * mu_norm[:, None]
+        cov = psum(_cov_sums_T(samples_T, c_mu, mu)) * inv_unnorm_alpha[:, None, None]
+    else:
+        mu = psum(jnp.einsum("kn,in->ki", wrho, samples_T, precision="highest")) * inv_unnorm_alpha[:, None]
+        cov = psum(_cov_sums_T(samples_T, wrho, mu)) * inv_unnorm_alpha[:, None, None]
 
-        const = None
-        if dof_stats:
-            nu_old = params.dof[:, None]
-            b = maha_old  # bilinear form with old inverse sigma, (K, N)
-            xi = rho * (jnp.log(0.5 * (b + nu_old))
-                        - jax.scipy.special.digamma(0.5 * (dim + nu_old))) \
-                + (1.0 - rho) * (jnp.log(0.5 * nu_old)
-                                 - jax.scipy.special.digamma(0.5 * nu_old))
-            delta = rho * (dim + nu_old) / (b + nu_old) + (1.0 - rho)
-            const = 1.0 - psum(jnp.einsum("kn,n->k", xi + delta, w)) / weight_normalization
+    const = None
+    if dof_stats:
+        nu_old = params.dof[:, None]
+        b = maha_old  # bilinear form with old inverse sigma, (K, N)
+        xi = rho * (jnp.log(0.5 * (b + nu_old))
+                    - jax.scipy.special.digamma(0.5 * (dim + nu_old))) \
+            + (1.0 - rho) * (jnp.log(0.5 * nu_old)
+                             - jax.scipy.special.digamma(0.5 * nu_old))
+        delta = rho * (dim + nu_old) / (b + nu_old) + (1.0 - rho)
+        const = 1.0 - psum(jnp.einsum("kn,n->k", xi + delta, w,
+                                      precision="highest")) / weight_normalization
 
     # ---- Student-t dof first-order condition, [HOD12] eq. (16) -------- #
     new_dofs = None
@@ -314,36 +229,6 @@ def pmc_update(
         params, mu, cov, new_weights, new_dofs=new_dofs, update_mask=live
     )
     return PMCResult(params=new_params, rho=rho, updated_ok=ok, live=live)
-
-
-def _moments_from_whitened_stats(params, stats, weight_normalization, psum,
-                                 dof_stats):
-    """Map the fused kernels' WHITENED sufficient statistics to the
-    [Cap+08] eq. (14) moment updates (and the [HOD12] dof-condition
-    constant): ``alpha``, ``mu``, ``cov`` come from s0/s0c/sd/g via the
-    known Cholesky factors -- exact linear algebra, no extra particle
-    pass.  ``psum`` all-reduces each statistic when running sharded."""
-    alpha_unnorm = psum(stats["s0"])
-    s0c = psum(stats["s0c"])
-    sd = psum(stats["sd"])
-    g = psum(stats["g"])
-    inv_unnorm_alpha = 1.0 / regularize(alpha_unnorm)
-    alpha = alpha_unnorm / weight_normalization
-    d_shift = jnp.einsum("kij,kj->ki", params.chol, sd,
-                         precision="highest") / regularize(s0c)[:, None]
-    mu = params.means + d_shift
-    sxx = jnp.einsum("kij,kjl,kml->kim", params.chol, g, params.chol,
-                     precision="highest")
-    cov = (sxx - s0c[:, None, None] * d_shift[:, None, :] * d_shift[:, :, None]) \
-        * inv_unnorm_alpha[:, None, None]
-    const = None
-    if dof_stats:
-        nu_old = params.dof
-        c2 = (jnp.log(0.5 * nu_old)
-              - jax.scipy.special.digamma(0.5 * nu_old) + 1.0)
-        sxd = psum(stats["t1"]) + c2 * (weight_normalization - alpha_unnorm)
-        const = 1.0 - sxd / weight_normalization
-    return alpha, mu, cov, const
 
 
 def _solve_dofs(const, old_dofs, dof_solver_steps, mindof, maxdof, dtype):
@@ -376,8 +261,7 @@ def _solve_dofs(const, old_dofs, dof_solver_steps, mindof, maxdof, dtype):
     return jax.vmap(solve_one)(const, old_dofs)
 
 
-@partial(jax.jit, static_argnames=("n", "dof_solver_steps", "axis_name",
-                                   "fused"))
+@partial(jax.jit, static_argnames=("n", "dof_solver_steps", "axis_name"))
 def pmc_step_mixture_target(
     params: _core.MixtureParams,
     target_params: _core.MixtureParams,
@@ -387,109 +271,34 @@ def pmc_step_mixture_target(
     mindof: float = 1e-5,
     maxdof: float = 1e3,
     axis_name: Optional[str] = None,
-    fused: str = "auto",
 ):
     """One COMPLETE (M-)PMC training step against a MIXTURE target --
     propose, evaluate proposal and target, weight, Rao-Blackwellized
-    responsibilities, gamma pass, and every sufficient statistic -- as a
-    SINGLE Pallas kernel on the TPU fast path
-    (:func:`pypmc_tpu.ops.pallas_kernels.fused_is_pmc_step`): samples and
-    weights are written to HBM once and never re-read by the adaptation.
-    Off the fast path this composes the fused propose/evaluate kernel with
-    :func:`pmc_update` (same math, two passes).
+    responsibilities, gamma pass, and every sufficient statistic -- as one
+    jitted computation: :func:`pypmc_tpu.density.core.propose_logq_T`
+    followed by :func:`pmc_update`.
 
     Always Rao-Blackwellized (``rb=True``).  With ``axis_name``, ``n`` is
     the LOCAL particle count per shard and all statistics are psum-reduced.
-    ``fused`` selects the kernel as in :func:`pmc_update` (``"auto"`` /
-    ``"dense"`` / ``"blocked"`` / ``"off"``).
 
     :returns: ``(result, samples_T (D, n), weights (n,), latent (n,),
-        sw (3,))`` with ``result`` a :class:`PMCResult` (``rho`` is None on
-        the fused path) and ``sw`` the GLOBAL ``[sum w, sum w^2,
-        sum w log w]`` weight diagnostics.
+        sw (3,))`` with ``result`` a :class:`PMCResult` and ``sw`` the
+        GLOBAL ``[sum w, sum w^2, sum w log w]`` weight diagnostics.
     """
-    import os as _os
-
-    dim, K = params.dim, params.K
-    dtype = params.means.dtype
-
     def psum(x):
         return jax.lax.psum(x, axis_name) if axis_name is not None else x
 
-    _check_fused_arg(fused)
-    dof_stats = params.is_student_t and bool(dof_solver_steps)
-    fused_mode = None
-    if (fused != "off" and n >= 1024
-            and not _os.environ.get("PYPMC_TPU_DISABLE_FUSED_RNG")):
-        from ..ops.pallas_kernels import (QUANTUM_RNG, fits_vmem_blocked,
-                                          prefer_blocked)
-
-        dense_ok = (K * dim <= 128
-                    and _core.use_pallas(params.means, K + target_params.K, dim))
-        blocked_ok = (_core.use_pallas(params.means)
-                      and fits_vmem_blocked(K + target_params.K, dim, QUANTUM_RNG))
-        if fused == "dense":
-            fused_mode = "dense" if dense_ok else None
-        elif fused == "blocked":
-            fused_mode = "blocked" if blocked_ok else None
-        elif dense_ok:
-            fused_mode = "dense"
-        elif blocked_ok and prefer_blocked(K, n):
-            fused_mode = "blocked"
-    _check_fused_feasible(fused, fused_mode,
-                          "TPU/float32, n >= 1024, VMEM fit for K+K_target "
-                          "components, and PYPMC_TPU_DISABLE_FUSED_RNG unset")
-
-    if not fused_mode:
-        out = _core.propose_logq_T(params, key, n, target_params)
-        samples_T, latent, log_q, log_p = out
-        w = jnp.exp(log_p - log_q)
-        result = pmc_update(
-            params, samples_T, w, rb=True,
-            dof_solver_steps=dof_solver_steps if params.is_student_t else 0,
-            mindof=mindof, maxdof=maxdof,
-            axis_name=axis_name, transposed=True,
-        )
-        wlogw = jnp.where(w > 0, w * jnp.log(jnp.where(w > 0, w, 1.0)), 0.0)
-        sw = psum(jnp.stack([jnp.sum(w), jnp.sum(w * w), jnp.sum(wlogw)]))
-        return result, samples_T, w, latent, sw
-
-    from ..ops.pallas_kernels import (fused_is_pmc_step,
-                                      fused_is_pmc_step_blocked)
-
-    step_kernel = (fused_is_pmc_step if fused_mode == "dense"
-                   else fused_is_pmc_step_blocked)
-    seed = jax.lax.bitcast_convert_type(
-        jax.random.bits(key, (2,), "uint32"), jnp.int32)
-    cumw = jnp.cumsum(params.weights).reshape(K, 1)
-    ct2 = params.chol.reshape(K * dim, dim)
-    a2, b2, log_norm, wk, dof_col, center = _core._pallas_operands(params, "inv_chol")
-    dof_row = None if params.dof is None else params.dof.reshape(1, K)
-    psi_c = None
-    if dof_stats:
-        psi_c = jax.scipy.special.digamma(
-            0.5 * (dim + params.dof)).reshape(K, 1).astype(dtype)
-    target = _core._pallas_operands(target_params, "inv_chol")
-    samples_T, latent, w, stats = step_kernel(
-        seed, cumw, ct2, params.means.T, dof_row,
-        a2, b2, log_norm, wk, dof_col, center, psi_c, target,
-        n=n, dim=dim, dof_stats=dof_stats)
-
-    sw = psum(stats["sw"])
-    weight_normalization = sw[0]
-    live = params.weights > 0
-    alpha, mu, cov, const = _moments_from_whitened_stats(
-        params, stats, weight_normalization, psum, dof_stats)
-    new_dofs = None
-    if dof_stats:
-        new_dofs = _solve_dofs(const, params.dof, dof_solver_steps,
-                               mindof, maxdof, dtype)
-    elif params.is_student_t:
-        new_dofs = params.dof
-    new_weights = jnp.where(live, alpha, params.weights * 0.0)
-    new_params, ok = _core.update_masked(
-        params, mu, cov, new_weights, new_dofs=new_dofs, update_mask=live)
-    result = PMCResult(params=new_params, rho=None, updated_ok=ok, live=live)
+    samples_T, latent, log_q, log_p = _core.propose_logq_T(
+        params, key, n, target_params)
+    w = jnp.exp(log_p - log_q)
+    result = pmc_update(
+        params, samples_T, w, rb=True,
+        dof_solver_steps=dof_solver_steps if params.is_student_t else 0,
+        mindof=mindof, maxdof=maxdof,
+        axis_name=axis_name, transposed=True,
+    )
+    wlogw = jnp.where(w > 0, w * jnp.log(jnp.where(w > 0, w, 1.0)), 0.0)
+    sw = psum(jnp.stack([jnp.sum(w), jnp.sum(w * w), jnp.sum(wlogw)]))
     return result, samples_T, w, latent, sw
 
 
@@ -630,7 +439,7 @@ class PMC(object):
 
         self.density = _cp(density)
         self.samples = samples
-        # keep the particles on device ONCE, transposed (native TPU layout)
+        # keep the particles on device ONCE, in the transposed layout
         self._samples_T_dev = jnp.asarray(samples).T
         self.latent = latent
         self._latent_dev = None if latent is None else jnp.asarray(_np.asarray(latent))

@@ -65,8 +65,7 @@ def r_group(means, variances, n, critical_r=2.0, approx=False):
         cross-mode chain pairs can pass ``critical_r`` while within-mode
         pairs fail it on sampling noise.  For high-dimensional use,
         grouping granularity matters less than component COUNT -- feed
-        ``make_r_gaussmix(K_g=1)`` and let VB/PMC decide K (measured
-        consequences in BENCHMARKS.md round-4)."""
+        ``make_r_gaussmix(K_g=1)`` and let VB/PMC decide K."""
     means = _np.asarray(means)
     variances = _np.asarray(variances)
     if means.ndim != 2 or variances.ndim != 2:

@@ -1,4 +1,5 @@
-"""Low-level TPU kernels: batched linear algebra and log-sum-exp."""
+"""Low-level kernels: batched linear algebra, log-sum-exp, chi-square
+samplers and the fused GPU mixture log-density."""
 
 from .linalg import CholResult, bilinear_sym, chol_inv_det, symmetrize
 from .lse import logsumexp, logsumexp2D, regularize, tiny

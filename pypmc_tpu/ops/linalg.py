@@ -1,9 +1,9 @@
-"""Batched linear-algebra kernels for TPU.
+"""Batched linear-algebra kernels.
 
-TPU-native replacement for the reference's Cython linalg layer
+Batched replacement for the reference's Cython linalg layer
 (``pypmc/tools/_linalg.pyx``): instead of scalar loops over a single
 symmetric matrix, everything here operates on *stacked* parameter arrays
-``(..., D, D)`` so that XLA can tile the work onto the MXU and fuse
+``(..., D, D)`` so that XLA can batch the work into few large kernels and fuse
 surrounding element-wise math.
 
 Failure semantics: the reference raises ``numpy.linalg.LinAlgError`` when a
@@ -45,13 +45,13 @@ def bilinear_sym(matrix: jax.Array, vector: jax.Array) -> jax.Array:
     leading batch dimensions of ``matrix`` ``(..., D, D)`` and ``vector``
     ``(..., D)``.
     """
-    return jnp.einsum("...i,...ij,...j->...", vector, matrix, vector)
+    return jnp.einsum("...i,...ij,...j->...", vector, matrix, vector, precision="highest")
 
 
 def chol_inv_det(m: jax.Array) -> CholResult:
     """Batched Cholesky + inverse + log-determinant with validity mask.
 
-    TPU-native equivalent of ``chol_inv_det`` in the reference
+    Batched equivalent of ``chol_inv_det`` in the reference
     (``tools/_linalg.pyx:41-95``), vectorized over any leading batch
     dimensions of ``m`` with shape ``(..., D, D)``.
 
@@ -73,7 +73,7 @@ def chol_inv_det(m: jax.Array) -> CholResult:
     inv_chol = jax.scipy.linalg.solve_triangular(
         safe_chol, jnp.broadcast_to(eye, safe_chol.shape), lower=True
     )
-    inv = jnp.einsum("...ji,...jk->...ik", inv_chol, inv_chol)  # U^T U
+    inv = jnp.einsum("...ji,...jk->...ik", inv_chol, inv_chol, precision="highest")  # U^T U
     diag = jnp.diagonal(safe_chol, axis1=-2, axis2=-1)
     log_det = 2.0 * jnp.sum(jnp.log(diag), axis=-1)
     valid = valid & jnp.isfinite(log_det)

@@ -1,9 +1,9 @@
 """Weighted log-sum-exp and regularization kernels.
 
-TPU-native replacement for the reference's Cython module
+Batched replacement for the reference's Cython module
 ``pypmc/tools/_regularize.pyx``: the scalar max-shifted loops become fused
 vector ops over the full ``(N, K)`` component-log-density matrix, which XLA
-maps onto the VPU in one pass over HBM.
+evaluates in one pass over device memory.
 """
 
 import jax.numpy as jnp

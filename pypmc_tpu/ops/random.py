@@ -1,4 +1,4 @@
-"""TPU-friendly exact samplers.
+"""Exact chi-square samplers for wide vectors.
 
 ``jax.random.chisquare``/``gamma`` run the Marsaglia-Tsang rejection loop as
 a masked whole-array ``while_loop``: iterations continue until EVERY element
@@ -22,12 +22,10 @@ unconditionally and IN LOG SPACE, so tiny degrees of freedom (``mindof ~
 throughout.
 
 .. note::
-    Measured end-to-end on TPU v5e at N=2^24, ``jax.random.chisquare`` is
-    FASTER than this sampler (the compaction's gather/scatter of the reject
-    tail is expensive on TPU), so the proposal path uses the stock sampler;
-    this module remains useful on backends where whole-array rejection
-    loops dominate, for tiny-dof log-space stability, and as the reference
-    implementation for the distributional tests.
+    The proposal path uses the stock ``jax.random.chisquare``; whether this
+    sampler is faster on the GPU is not measured.  It remains useful for
+    tiny-dof log-space stability and as the reference implementation for
+    the distributional tests.
 """
 
 from functools import partial
@@ -85,7 +83,7 @@ def chi2_log(key, df, shape):
 
     # compact the stragglers (expected fraction <= 1.25e-4, worst-case
     # accept 0.95/round) and loop only them; capacity 16x the worst-case
-    # mean keeps the TPU scatter tiny while overflow stays astronomically
+    # mean keeps the scatter tiny while overflow stays astronomically
     # unlikely
     n = 1
     for s in shape:

@@ -15,7 +15,7 @@ __all__ = ["trace", "timed"]
 
 @contextlib.contextmanager
 def trace(logdir="/tmp/pypmc_tpu_trace"):
-    """Context manager capturing an XLA/TPU profiler trace to ``logdir``
+    """Context manager capturing an XLA device profiler trace to ``logdir``
     (view with TensorBoard's profile plugin / xprof)."""
     with jax.profiler.trace(logdir):
         yield logdir

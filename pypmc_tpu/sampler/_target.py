@@ -1,17 +1,15 @@
 """Target-density adapters.
 
-A target is a callable ``x (D,) -> log P(x)``.  On TPU, evaluating a
-per-sample callable with ``vmap`` lowers quadratic forms to matmuls with tiny
-(D, D) matrices against the huge particle axis, which are MXU-latency-bound
-(~100x slower than the fused mixture kernels).  Marking a target as
-*batched* -- a callable over the whole sample block -- lets the samplers call
-it directly so the author can use layouts/kernels that scale.
+A target is a callable ``x (D,) -> log P(x)``.  Evaluating a per-sample
+callable with ``vmap`` lowers quadratic forms to matmuls with tiny (D, D)
+matrices against the huge particle axis.  Marking a target as *batched* -- a
+callable over the whole sample block -- lets the samplers call it directly so
+the author can use layouts/kernels that scale.
 
-Internally the TPU pipelines carry particles TRANSPOSED ``(D, N)``
-(structure-of-arrays: the particle axis on the 128-lane dimension); a
-batched target may declare ``transposed=True`` to receive that layout
-directly and avoid any conversion (e.g.
-``MixtureDensity.evaluate_fn(batched=True)``).
+Internally the samplers carry particles TRANSPOSED ``(D, N)``
+(structure-of-arrays: the particle axis last); a batched target may declare
+``transposed=True`` to receive that layout directly and avoid any conversion
+(e.g. ``MixtureDensity.evaluate_fn(batched=True)``).
 """
 
 import jax
@@ -25,7 +23,7 @@ def batched_target(fn=None, *, transposed=False):
     """Mark ``fn`` as a batched log-target.
 
     With ``transposed=False`` (default) it receives row-major ``(N, D)``
-    blocks; with ``transposed=True`` it receives the native TPU layout
+    blocks; with ``transposed=True`` it receives the samplers' device layout
     ``(D, N)``.  Either way it returns ``(N,)`` log-densities.  Usable as a
     plain decorator or with arguments.
     """
@@ -59,7 +57,7 @@ def evaluate_target(target, samples):
 
 def evaluate_target_T(target, samples_T):
     """Evaluate ``target`` on a transposed ``(D, N)`` sample block (the
-    native TPU pipeline layout); only transposed-batched targets avoid the
+    samplers' device layout); only transposed-batched targets avoid the
     layout conversion."""
     if is_batched(target) and is_transposed(target):
         return target(samples_T)

@@ -209,9 +209,9 @@ class TestCore:
 
     def test_propose_fallback_matches_dense_gather(self):
         """The XLA fallback of ``propose_T`` gathers (D, K) Cholesky-column
-        panels (an (N, D, D) gather pads its last axis to 128 lanes on TPU:
-        64x HBM expansion at D=2).  Pin it against the dense-gather
-        formulation on the same draws."""
+        panels instead of an (N, D, D) table, which would be D times the
+        size of the samples.  Pin it against the dense-gather formulation on
+        the same draws."""
         params, _ = core.make_mixture(MEANS, COVS, WEIGHTS, DOFS)
         n = 4096
         samples_T, latent = core.propose_T(params, jax.random.PRNGKey(11), n)

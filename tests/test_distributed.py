@@ -10,7 +10,7 @@ own test by parsing the per-check marker lines:
 * Multi-process IS+PMC run: every process computes the IDENTICAL adapted
   mixture (digest equality across processes) -- the property that replaces
   the reference's proposal broadcast.
-* Multi-process sharded VB: fused E-step under the 2-process mesh matches a
+* Multi-process sharded VB: the E-step under the 2-process mesh matches a
   full-data single-process run.
 * Non-divisible n_total: accepted (rounded up) across processes.
 """

@@ -5,8 +5,8 @@ MCMC -> R-grouping -> VB -> IS -> weighted-VB -> IS -> combine pipeline.
 
 Three accuracy cases (VERDICT r4 item 5 -- previously only D=20 was
 suite-guarded; the D=40 Gaussian and D=40 heavy-tailed Student-t runs,
-where the round-4 float32 failure modes actually bit, existed only as
-BENCHMARKS.md numbers):
+where the round-4 float32 failure modes actually bit, were not
+suite-guarded):
 
 * D=20 Gaussian target, in-process (float64 CPU under the suite config);
 * D=40 Gaussian target, SUBPROCESS in true float32 (the measured claim is
@@ -22,8 +22,7 @@ Plus one regression per round-4 failure-mode fix:
    ``test_importance_sampling.py::test_combine_weights_zero_weights_stay_on_log_path``;
 4. Ionides weight clipping for the PMC adaptation -- test_adaptation_clips.
 
-Production-scale float32 TPU numbers live in BENCHMARKS.md
-("High-dimensional evidence accuracy")."""
+Production-scale float32 numbers on the GPU: not measured yet (PERF.md)."""
 
 import json
 import os
@@ -62,8 +61,8 @@ def _run_f32_subprocess(extra_args, timeout=1500):
     return json.loads(line[0][5:])
 
 
-# the reduced-budget configurations measured in BENCHMARKS.md round-4
-# (~1 min each on CPU): 16 chains x 16k steps, 0.66M IS samples
+# reduced-budget configurations (~1 min each on CPU): 16 chains x 16k
+# steps, 0.66M IS samples
 _D40_BUDGET = ["--dim", "40", "--chains", "16", "--mcmc-steps", "1600",
                "--mcmc-cycles", "10", "--is-samples", str(1 << 19)]
 

@@ -196,9 +196,9 @@ class TestAdaptFallback:
 
 
 def test_pool_mixture_target_cpu_path():
-    """``sample_adaptive_chains`` accepts a ``MixtureParams`` target; on CPU
-    (no Pallas) it routes through the scan kernel via the mixture's logpdf
-    and still recovers the target moments."""
+    """``sample_adaptive_chains`` accepts a ``MixtureParams`` target (run
+    through the scan pool via the mixture's logpdf) and recovers the target
+    moments."""
     from pypmc_tpu.density import core
 
     rng = np.random.default_rng(5)
@@ -217,3 +217,120 @@ def test_pool_mixture_target_cpu_path():
     kept = np.asarray(samples[:, 400:, :]).reshape(-1, 2)
     assert np.allclose(kept.mean(axis=0), MU, atol=0.15)
     assert np.allclose(np.cov(kept, rowvar=False), SIGMA, atol=0.3)
+
+
+# ------------------------------------------------------------------ #
+# the chain pool: carried state, NaN policy, indicator, D=40          #
+# ------------------------------------------------------------------ #
+
+def bimodal_target(D=2):
+    from pypmc_tpu.density import core
+
+    tm = np.zeros((2, D), np.float32)
+    tm[1] += 4.0
+    tc = np.array([np.eye(D) * 0.5] * 2, np.float32)
+    tparams, valid = core.make_mixture(tm, tc, np.array([0.5, 0.5], np.float32))
+    assert bool(np.asarray(valid).all())
+    return tparams
+
+
+def test_pool_carries_state_across_cycles():
+    """Each cycle continues from where the last one stopped: the step across
+    a cycle boundary is an ordinary Metropolis step, far shorter than the
+    distance the chains have wandered from their starts (a restart would
+    jump back to them)."""
+    tparams = bimodal_target(2)
+    rng = np.random.default_rng(3)
+    starts = rng.normal(2, 1, (130, 2)).astype(np.float32)
+    s, r = sample_adaptive_chains(
+        tparams, starts, np.eye(2, dtype=np.float32) * 0.5, 50, 3,
+        key=jax.random.PRNGKey(0))
+    s = np.asarray(s)
+    assert s.shape == (130, 150, 2)
+    steps = np.linalg.norm(np.diff(s, axis=1), axis=-1)     # (C, 149)
+    for b in (49, 99):                                       # cycle boundaries
+        assert steps[:, b].max() <= steps[:, b + 1:b + 50].max() + 1e-6
+    wandered = np.linalg.norm(s[:, 49] - starts, axis=-1).mean()
+    assert steps[:, 49].mean() < 0.5 * wandered
+    assert np.isfinite(np.asarray(r)).all()
+
+
+def test_pool_deterministic_per_key():
+    tparams = bimodal_target(2)
+    starts = np.zeros((16, 2), np.float32)
+    sig = np.eye(2, dtype=np.float32) * 0.5
+    a = sample_adaptive_chains(tparams, starts, sig, 32, 2, key=jax.random.PRNGKey(7))[0]
+    b = sample_adaptive_chains(tparams, starts, sig, 32, 2, key=jax.random.PRNGKey(7))[0]
+    c = sample_adaptive_chains(tparams, starts, sig, 32, 2, key=jax.random.PRNGKey(8))[0]
+    assert np.array_equal(np.asarray(a), np.asarray(b))
+    assert not np.array_equal(np.asarray(a), np.asarray(c))
+
+
+def test_pool_student_t_proposal():
+    """Student-t proposal scale: heavier-tailed steps accept less than the
+    Gaussian walk with the same Cholesky, still finite and moving."""
+    tparams = bimodal_target(2)
+    starts = np.random.default_rng(0).normal(2, 1, (64, 2)).astype(np.float32)
+    sig = np.eye(2, dtype=np.float32) * 0.64
+    kw = dict(key=jax.random.PRNGKey(1), force_acceptance_max=1.0,
+              force_acceptance_min=0.0)
+    sg, rg = sample_adaptive_chains(tparams, starts, sig, 128, 1, **kw)
+    st, rt = sample_adaptive_chains(tparams, starts, sig, 128, 1, dof=3.0, **kw)
+    assert np.isfinite(np.asarray(st)).all()
+    assert (np.asarray(rt) > 0).all()
+    assert np.asarray(rt).mean() < np.asarray(rg).mean()
+
+
+def test_sample_adaptive_chains_nan_policy():
+    """continue_on_NaN parity with MarkovChain.run: default raises, True
+    rejects NaN proposals and keeps the pool running."""
+    def target(x):
+        # NaN outside a band around the origin
+        r2 = jnp.sum(x * x)
+        return jnp.where(r2 < 4.0, -0.5 * r2, jnp.nan)
+
+    starts = np.zeros((8, 2), np.float32)
+    with pytest.raises(ValueError, match="NaN"):
+        sample_adaptive_chains(target, starts, np.eye(2, dtype=np.float32) * 4.0,
+                               32, 1, key=jax.random.PRNGKey(0))
+    s, r = sample_adaptive_chains(target, starts,
+                                  np.eye(2, dtype=np.float32) * 4.0,
+                                  32, 1, key=jax.random.PRNGKey(0),
+                                  continue_on_NaN=True)
+    s = np.asarray(s)
+    assert np.isfinite(s).all()
+    assert (np.sum(s * s, axis=-1) < 4.0).all()
+
+
+def test_sample_adaptive_chains_indicator():
+    """An indicator restricts the support of a MixtureParams target: no
+    sample lands outside, and a start outside fails loudly."""
+    tparams = bimodal_target(2)
+    ind = hyperrectangle(jnp.array([-10.0, -10.0]), jnp.array([2.0, 10.0]))
+    starts = np.zeros((16, 2), np.float32)
+    s, r = sample_adaptive_chains(
+        tparams, starts, np.eye(2, dtype=np.float32) * 0.5, 64, 2,
+        key=jax.random.PRNGKey(1), indicator=ind)
+    assert (np.asarray(s).reshape(-1, 2)[:, 0] <= 2.0).all()
+    bad = np.full((4, 2), 5.0, np.float32)
+    with pytest.raises(ValueError, match="not finite"):
+        sample_adaptive_chains(tparams, bad, np.eye(2, dtype=np.float32),
+                               8, 1, indicator=ind)
+
+
+def test_pool_d40_mixture_target():
+    """D=40 Gaussian target: the pool runs, the chains move and stay on the
+    target's scale."""
+    from pypmc_tpu.density import core
+
+    D, C = 40, 64
+    tparams, _ = core.make_mixture(np.zeros((1, D), np.float32),
+                                   np.array([np.eye(D, dtype=np.float32)]))
+    starts = np.random.default_rng(0).normal(0, 1, (C, D)).astype(np.float32)
+    s, r = sample_adaptive_chains(
+        tparams, starts, np.eye(D, dtype=np.float32) * (2.38 ** 2 / D), 100, 2,
+        key=jax.random.PRNGKey(2))
+    s, r = np.asarray(s), np.asarray(r)
+    assert s.shape == (C, 200, D) and np.isfinite(s).all()
+    assert ((r > 0) & (r < 1)).all()
+    assert abs(s[:, 100:].std() - 1.0) < 0.15

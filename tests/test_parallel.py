@@ -280,9 +280,9 @@ class TestScanSteps:
 
 
 class TestMixtureTarget:
-    """A MixtureParams target runs the fused one-kernel step on TPU; on the
-    CPU fallback both target forms share the same key-derived sample stream,
-    so the runs must agree EXACTLY -- this pins the target-as-argument
+    """A MixtureParams target and the same mixture as a batched callable
+    share the same key-derived sample stream, so the runs must agree
+    EXACTLY -- this pins the target-as-argument
     plumbing (cache token, shard_map specs) and the sw-based diagnostics."""
 
     def _targets(self):
@@ -342,8 +342,8 @@ class TestMixtureTarget:
                                atol=0.1)
 
     def test_step_mixture_target_matches_manual(self):
-        """pmc_step_mixture_target (fallback path off-TPU) == manual
-        propose_logq_T + pmc_update composition with the same key."""
+        """pmc_step_mixture_target == manual propose_logq_T + pmc_update
+        composition with the same key."""
         from pypmc_tpu.mix_adapt.pmc import pmc_step_mixture_target
 
         t_params, _ = self._targets()
@@ -370,13 +370,12 @@ class TestMixtureTarget:
 
 
 class TestShardedFusedVB:
-    """The EXPLICIT shard_map path for the fused Pallas VB E-step (GSPMD
-    cannot partition a pallas_call): statistics psum'ed per E-step must
-    reproduce the plain single-device run."""
+    """GaussianInference with ``mesh=``: the particle axis is sharded over
+    the mesh and GSPMD reduces the E-step's sums across devices; the run
+    must reproduce the plain single-device run."""
 
-    def test_sharded_fused_estep_matches_plain(self, monkeypatch):
+    def test_sharded_fused_estep_matches_plain(self):
         from pypmc_tpu.mix_adapt import variational as vb
-        from pypmc_tpu.ops import pallas_kernels as pk
 
         n, dd = 8 * 200, 3
         rng = np.random.default_rng(5)
@@ -387,13 +386,10 @@ class TestShardedFusedVB:
                                      nu=np.full(3, dd + 1.0))
         plain.run(30, prune=0.0)
 
-        monkeypatch.setattr(core, "use_pallas", lambda arr, *a, **k: True)
-        monkeypatch.setattr(pk, "INTERPRET", True)
         mesh = particle_mesh()
         sharded = vb.GaussianInference(data, components=3,
                                        nu=np.full(3, dd + 1.0), mesh=mesh)
-        assert sharded._fused_eligible()
-        assert sharded._e.r is None  # reduced fused representation
+        assert sharded.data.sharding.spec == P("particles", None)
         sharded.run(30, prune=0.0)
 
         assert np.allclose(np.asarray(sharded.N_comp), np.asarray(plain.N_comp),
@@ -405,45 +401,33 @@ class TestShardedFusedVB:
 
 
 class TestShardedFusedPMC:
-    """The fused single-pass PMC statistics kernels INSIDE shard_map, run
-    through the Pallas interpreter on the 8-device mesh -- the same
-    composition production uses on a TPU slice (VERDICT r2 item 3): psum'ed
-    fused statistics must reproduce the serial unfused update."""
+    """pmc_update INSIDE shard_map on the 8-device mesh, the composition the
+    sharded PMC runner uses: psum'ed sufficient statistics must reproduce
+    the serial update."""
 
-    @pytest.mark.parametrize("K,D", [(3, 2),    # dense kernel (K*D <= 128)
-                                     (80, 2)])  # K-blocked kernel
-    def test_fused_sharded_equals_serial(self, monkeypatch, K, D):
-        from pypmc_tpu.mix_adapt import pmc as pmc_mod
-        from pypmc_tpu.ops import pallas_kernels as pk
-
+    @pytest.mark.parametrize("K,D", [(3, 2), (80, 2), (21, 10)])
+    def test_fused_sharded_equals_serial(self, K, D):
         rng = np.random.default_rng(11)
         means = rng.normal(0, 3, size=(K, D)).astype(np.float32)
         covs = np.array([np.eye(D, dtype=np.float32) * 1.5] * K)
         params, valid = core.make_mixture(means, covs)
         assert bool(np.asarray(valid).all())
-        n = 8 * 1024  # the fused path gates on >= 1024 per shard
+        n = 8 * 1024
         samples = jnp.asarray(rng.normal(0, 3, size=(n, D)).astype(np.float32))
         weights = jnp.asarray(
             np.abs(rng.normal(1, 0.2, size=n)).astype(np.float32))
 
         serial = pmc_update(params, samples, weights)
-        assert serial.rho is not None  # unfused on plain CPU
+        mesh = particle_mesh()
 
-        monkeypatch.setattr(core, "use_pallas", lambda arr, *a, **k: True)
-        monkeypatch.setattr(pk, "INTERPRET", True)
-        pmc_update.clear_cache()
-        try:
-            mesh = particle_mesh()
+        @partial(jax.shard_map, mesh=mesh,
+                 in_specs=(P(), P("particles"), P("particles")),
+                 out_specs=P(), check_vma=False)
+        def sharded(p, s, wts):
+            return pmc_update(p, s, wts, axis_name="particles").params
 
-            @partial(jax.shard_map, mesh=mesh,
-                     in_specs=(P(), P("particles"), P("particles")),
-                     out_specs=P(), check_vma=False)
-            def sharded(p, s, wts):
-                return pmc_update(p, s, wts, axis_name="particles").params
-
-            out = jax.jit(sharded)(params, samples, weights)
-        finally:
-            pmc_update.clear_cache()
+        out = jax.jit(sharded)(params, samples, weights)
+        # float32 sums over 8 shards in another order than the serial sum
         np.testing.assert_allclose(np.asarray(out.weights),
                                    np.asarray(serial.params.weights),
                                    rtol=1e-4, atol=1e-6)
@@ -499,9 +483,8 @@ class TestNonDivisibleN:
         assert float(np.asarray(stats.ess)[-1]) > \
             float(np.asarray(stats.ess)[0]) - 0.05
 
-    def test_vb_mesh_pads_with_zero_weight(self, monkeypatch):
+    def test_vb_mesh_pads_with_zero_weight(self):
         from pypmc_tpu.mix_adapt import variational as vb
-        from pypmc_tpu.ops import pallas_kernels as pk
 
         n, dd = 8 * 150 + 7, 2   # NOT divisible by 8
         rng = np.random.default_rng(9)
@@ -512,13 +495,13 @@ class TestNonDivisibleN:
                                      nu=np.full(2, dd + 1.0))
         plain.run(20, prune=0.0)
 
-        monkeypatch.setattr(core, "use_pallas", lambda arr, *a, **k: True)
-        monkeypatch.setattr(pk, "INTERPRET", True)
         sharded = vb.GaussianInference(data, components=2,
                                        nu=np.full(2, dd + 1.0),
                                        mesh=particle_mesh())
-        assert sharded._w_fused is not None
-        assert sharded._w_fused.shape[0] == 8 * 151  # padded
+        assert sharded.N == n
+        assert sharded.weights.shape[0] == 8 * 151  # padded
+        assert float(jnp.sum(sharded.weights[n:])) == 0.0
+        assert sharded.r.shape == (n, 2)
         sharded.run(20, prune=0.0)
         assert np.allclose(np.asarray(sharded.N_comp), np.asarray(plain.N_comp),
                            rtol=5e-3, atol=5e-2)

@@ -19,7 +19,7 @@ def make_starts(dim, n=12, seed=0):
 
 
 def test_integrate_mixture_target():
-    """Mixture-target (fully fused) path: recovers the analytic evidence
+    """Mixture-target path: recovers the analytic evidence
     and returns a live Student-t proposal plus per-stage diagnostics."""
     dim = 3
     r = pt.pipeline.integrate(

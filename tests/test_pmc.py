@@ -280,7 +280,7 @@ class TestPMCDriver:
             PMC(SAMPLES, "not a mixture")
 
     def test_run_terminates_under_bound_oscillation(self, monkeypatch):
-        """float32 fused paths can make the log-likelihood oscillate at the
+        """float32 arithmetic can make the log-likelihood oscillate at the
         last few ulps instead of increasing monotonically; the convergence
         loop must neither hang nor declare convergence on a decrease step."""
         mix = create_gaussian_mixture(MEANS0, COVS0, ALPHA0)

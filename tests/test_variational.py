@@ -198,7 +198,7 @@ class TestConvergence:
         assert converged is not None
 
     def test_run_terminates_under_bound_oscillation(self, monkeypatch):
-        """The fused float32 E-step can leave the bound oscillating at ulp
+        """A float32 E-step can leave the bound oscillating at ulp
         scale; ``run`` must neither hang nor converge on a decrease step."""
         vb = make_vb()
         calls = {"n": 0}
